@@ -40,7 +40,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Merge all high-content screening regions (wells)")
     parser.add_argument('--params-json',
                         help="Path to a JSON file containing stitching parameters (overrides other arguments)")
-    # TPU-engine extensions (reference hard-coded these)
+    # engine extensions (reference hard-coded these)
     parser.add_argument('--blend-method', choices=['overwrite', 'feather'],
                         default='overwrite',
                         help="Fusion semantics: reference-parity overwrite or feathered blending")
@@ -128,8 +128,6 @@ def create_options(args: argparse.Namespace) -> EngineOptions:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    from .utils.jaxenv import pin_jax_platform
-    pin_jax_platform()
     try:
         params = create_params(args)
         options = create_options(args)

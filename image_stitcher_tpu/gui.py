@@ -114,7 +114,7 @@ class StitchingGUI(QWidget):
         self.view_btn.setEnabled(False)
         layout.addWidget(self.view_btn)
 
-        self.setWindowTitle("TPU Image Stitcher")
+        self.setWindowTitle("Image Stitcher")
 
         self.timer = QTimer(self)
         self.timer.timeout.connect(self.poll_queues)
@@ -386,8 +386,6 @@ class StitchingGUI(QWidget):
 
 
 def main() -> int:
-    from .utils.jaxenv import pin_jax_platform
-    pin_jax_platform()
     if not HAVE_QT:
         print("PyQt5 not available; run the CLI instead:", file=sys.stderr)
         print("  python -m image_stitcher_tpu.cli -i <folder>", file=sys.stderr)

@@ -20,13 +20,13 @@ Layout expected on disk (reference README.md):
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import pandas as pd
 
 from ..utils.colors import get_channel_color
 
@@ -181,6 +181,57 @@ def parse_tile_filename(filename: str) -> Optional[Tuple[str, int, int, str]]:
     return region, fov, z_level, channel
 
 
+def import_cv2(purpose: str):
+    """OpenCV, which only some inputs and outputs need: a clear
+    ImportError naming ``purpose`` when it is not installed."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"OpenCV (cv2) is needed for {purpose}, but it "
+                          "is not installed") from e
+    return cv2
+
+
+def _region_key(cell: str) -> Optional[str]:
+    """A coordinates.csv region cell as the name tile filenames carry.
+
+    Blank cells give None (the row is skipped). Integral numbers render
+    as ints ('5.0' -> '5'), so a numeric region written through a
+    float-typed column still matches the '5' parsed from filenames."""
+    cell = cell.strip()
+    if not cell or cell.lower() == 'nan':
+        return None
+    try:
+        num = float(cell)
+    except ValueError:
+        return cell
+    return str(int(num)) if num.is_integer() else cell
+
+
+def read_coordinates(path: str) -> Dict[Tuple[str, int, int], Dict[str, str]]:
+    """Parse one timepoint's coordinates.csv into {(region, fov, z): row}.
+
+    One indexed lookup table instead of a full-column filter per file
+    (O(files x rows) on big plates). Corrupt rows — blank or NaN cells,
+    fractional fov/z_level — are skipped, since truncating 1.5 would land
+    on the genuine fov-1 key. The first row for a key wins.
+    """
+    rows: Dict[Tuple[str, int, int], Dict[str, str]] = {}
+    with open(path, newline='') as f:
+        for r in csv.DictReader(f):
+            try:
+                fov_f, z_f = float(r['fov']), float(r['z_level'])
+                if fov_f != int(fov_f) or z_f != int(z_f):
+                    continue
+            except (ValueError, TypeError, OverflowError):
+                continue  # blank, NaN or non-numeric fov/z_level
+            region = _region_key(r['region'] or '')
+            if region is None:
+                continue
+            rows.setdefault((region, int(fov_f), int(z_f)), r)
+    return rows
+
+
 def read_image(filepath: str, prefer_mmap: bool = False,
                prefetch: bool = False) -> np.ndarray:
     """Read a tile image as (H, W) or (H, W, 3) RGB ndarray.
@@ -201,7 +252,8 @@ def read_image(filepath: str, prefer_mmap: bool = False,
                               prefetch=prefetch)
         if fast is not None:
             return fast
-    import cv2
+    cv2 = import_cv2(f"reading {os.path.basename(filepath)} (only "
+                     "uncompressed TIFF tiles are read without it)")
     img = cv2.imread(filepath, cv2.IMREAD_UNCHANGED)
     if img is None:
         # Fall back to imageio for formats OpenCV can't handle.
@@ -235,37 +287,9 @@ def scan_acquisition(input_folder: str) -> Acquisition:
         image_folder = os.path.join(input_folder, timepoint)
         coordinates_path = os.path.join(image_folder, 'coordinates.csv')
         try:
-            coords = pd.read_csv(coordinates_path)
+            coord_rows = read_coordinates(coordinates_path)
         except FileNotFoundError:
             continue
-
-        # one indexed lookup table instead of a full-column boolean
-        # filter per file (O(files x rows) on big plates). Regions
-        # compare as STRINGS: pandas reads purely-numeric region names
-        # (e.g. '0') as int64, which would never match the str parsed
-        # from filenames.
-        coord_rows: Dict = {}
-        for r in coords.to_dict('records'):
-            # corrupt rows (blank/NaN cells, fractional fov/z) are
-            # skipped exactly like the old equality-filter join — int()
-            # alone would TRUNCATE 1.5 onto the genuine fov-1 key
-            try:
-                fov_f, z_f = float(r['fov']), float(r['z_level'])
-                if (fov_f != int(fov_f) or z_f != int(z_f)
-                        or r['region'] != r['region']):  # NaN region
-                    continue
-                reg = r['region']
-                # one blank cell coerces the whole region column to
-                # float64 — '5' would str() as '5.0' and never match
-                # the name parsed from filenames; integral floats must
-                # render as ints
-                if isinstance(reg, float) and reg.is_integer():
-                    reg = int(reg)
-                key2 = (str(reg), int(fov_f), int(z_f))
-            except (ValueError, TypeError):
-                continue
-            # first matching row wins, like the old .iloc[0]
-            coord_rows.setdefault(key2, r)
         parsed = sorted(
             (f, p) for f in os.listdir(image_folder)
             if (p := parse_tile_filename(f)) is not None

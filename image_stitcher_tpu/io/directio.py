@@ -10,8 +10,7 @@ rep spent 19 s of 29 s inside pwritev before this path existed.
 
 The decision is measured, not configured: ``probe_direct_io`` writes a
 ~256 MB interleaved A/B (buffered+fdatasync vs O_DIRECT) once per
-(device, cpu-count) with a 24 h disk cache — the same philosophy as the
-link probe (parallel/autotune.py). Buffered is charged its fdatasync
+(device, cpu-count) with a 24 h disk cache. Buffered is charged its fdatasync
 because the raw writers only serve multi-GB streaming outputs, where
 writeback lands inline once the dirty window is exhausted; on hosts
 with spare cores and fast disks the two arms tie and buffered keeps the

@@ -13,8 +13,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .zarr_store import (create_zarr3_sharded_array, create_zarr_array,
-                         write_group)
+from .zarr_store import (create_raw_zarr_array, create_zarr3_sharded_array,
+                         create_zarr_array, write_group)
 
 # Axis definitions, parity with reference stitcher.py:825-831.
 OME_AXES = [
@@ -164,6 +164,9 @@ class MultiscaleWriter:
         self.num_levels = num_levels
         self.shapes = level_shapes(tuple(base_shape), num_levels)
         self._raw = None  # direct raw-chunk writers (set below when raw)
+        # raw v2 levels have no tensorstore array to fall back to: a slab
+        # the raw writer refuses is an error there
+        self._raw_only = False
         omero = (omero_attrs(name, channel_names, channel_colors, dtype,
                              full=omero_full) if write_omero else None)
         if zarr_format == 3:
@@ -197,22 +200,29 @@ class MultiscaleWriter:
             if omero is not None:
                 attrs["omero"] = omero
             write_group(path, attrs)
-            self.arrays = [
-                create_zarr_array(os.path.join(path, str(level)),
-                                  self.shapes[level], chunks, dtype,
-                                  cname=cname, clevel=clevel, shuffle=shuffle)
-                for level in range(num_levels)
-            ]
+            raw = None
             if cname is None:
                 # raw chunks: band slabs go straight to chunk files via
-                # pwritev (io/raw_zarr.py) — ~2x less write-stage CPU
-                # than tensorstore's assemble-and-write, more when the
-                # core is starved
+                # pwritev (io/raw_zarr.py), and every level is written
+                # only there — no tensorstore on this path
                 from .raw_zarr import RawV2SlabWriter
-                self._raw = [
-                    RawV2SlabWriter(os.path.join(path, str(level)),
-                                    self.shapes[level], chunks, dtype,
-                                    direct_io=direct_io)
+                raw = [RawV2SlabWriter(os.path.join(path, str(level)),
+                                       self.shapes[level], chunks, dtype,
+                                       direct_io=direct_io)
+                       for level in range(num_levels)]
+            if raw is not None and all(r.ok for r in raw):
+                for level in range(num_levels):
+                    create_raw_zarr_array(os.path.join(path, str(level)),
+                                          self.shapes[level], chunks, dtype)
+                self._raw = raw
+                self._raw_only = True
+                self.arrays = None
+            else:
+                self.arrays = [
+                    create_zarr_array(os.path.join(path, str(level)),
+                                      self.shapes[level], chunks, dtype,
+                                      cname=cname, clevel=clevel,
+                                      shuffle=shuffle)
                     for level in range(num_levels)
                 ]
         self._pending = []          # (future, nbytes) in issue order
@@ -247,6 +257,9 @@ class MultiscaleWriter:
         if raw is not None and getattr(raw, 'try_write_block', None):
             if raw.try_write_block(0, c, z, y0, cxi, block):
                 return True
+            if self._raw_only:
+                self._refused(level, f"chunk block {block.shape} at "
+                                     f"(c={c}, z={z}, y0={y0}, cx={cxi})")
             if raw.disable_on_fallback:
                 # conservative: once anything in this level goes through
                 # tensorstore, later raw zero-padding writes could clobber
@@ -279,13 +292,13 @@ class MultiscaleWriter:
             raw = self._raw[level]
             if raw.try_write(sel, data):
                 return True
-            # mixing gate: one fallback disables raw for this level for
-            # good. v3 shards repack bodies in write-order subset
-            # layout; v2 raw writes zero-pad each touched chunk row to
-            # the right, which would erase a prior tensorstore write
-            # sitting right of the slab in the same rows. The fusers'
-            # patterns are uniform per level, so if one slab falls back
-            # they all would — disabling costs nothing in practice.
+            if self._raw_only:
+                self._refused(level, f"slab {np.shape(data)} at {sel}")
+            # mixing gate (v3): one fallback disables raw for this level
+            # for good — tensorstore repacks shard bodies in write-order
+            # subset layout, which later raw writes would corrupt. The
+            # fusers' patterns are uniform per level, so if one slab
+            # falls back they all would — disabling costs nothing.
             if raw.disable_on_fallback:
                 raw.ok = False
         target = self.arrays[level] if sel is None else self.arrays[level][sel]
@@ -304,6 +317,12 @@ class MultiscaleWriter:
         for old in drain:
             old.result()
         return False
+
+    def _refused(self, level: int, what: str):
+        raise ValueError(
+            f"raw zarr v2 writer for level {level} of {self.path} cannot "
+            f"write {what}: only full-width row slabs and chunk-column "
+            "blocks are supported without a compressor")
 
     def close(self):
         with self._lock:

@@ -21,9 +21,10 @@ zeros, which read identically to written fill-value zeros (fill must be
 
 This writer only covers the slab patterns the fusers produce (single
 (t, c, z) planes, x starting at 0, C-contiguous rows). ``try_write``
-returns False for anything else and the caller falls back to the
-tensorstore path, so it is an accelerator, not a second code path to
-keep correct by hand.
+returns False for anything else. For zarr v3 the caller then falls back
+to tensorstore; raw zarr v2 output (io/omezarr.MultiscaleWriter) is
+written by this module alone and treats a refusal as an error. Without
+the native kernel, rows are written with NumPy and ``os.pwrite``.
 """
 
 from __future__ import annotations
@@ -56,6 +57,12 @@ def crc32c(data: bytes) -> int:
     for b in data:
         crc = (crc >> 8) ^ _CRC32C_TABLE[(crc ^ b) & 0xFF]
     return crc ^ 0xFFFFFFFF
+
+
+def _pwrite_all(fd: int, data, offset: int) -> None:
+    done = 0
+    while done < len(data):
+        done += os.pwrite(fd, data[done:], offset + done)
 
 
 class _RawSlabWriterBase:
@@ -124,7 +131,15 @@ class _RawSlabWriterBase:
                           src_col0, nrows, row_bytes,
                           row_bytes + pad_bytes, off0)
             return
-        rc = get_lib().write_rows_contig(
+        lib = get_lib()
+        if lib is None or not hasattr(lib, 'write_rows_contig'):
+            rows = plane[src_row0:src_row0 + nrows,
+                         src_col0:src_col0 + row_bytes // self.dtype.itemsize]
+            buf = np.zeros((nrows, row_bytes + pad_bytes), np.uint8)
+            buf[:, :row_bytes] = rows.view(np.uint8).reshape(nrows, -1)
+            _pwrite_all(fd, memoryview(buf).cast('B'), off0)
+            return
+        rc = lib.write_rows_contig(
             fd,
             ctypes.c_void_p(plane.ctypes.data
                             + src_row0 * plane.strides[0]
@@ -205,8 +220,7 @@ class RawV2SlabWriter(_RawSlabWriterBase):
         self.dtype = np.dtype(dtype)
         self.sep = dimension_separator
         self.ok = (fill_value == 0 and self.sep in ('/', '.')
-                   and len(self.shape) == 5 and get_lib() is not None
-                   and hasattr(get_lib(), 'write_rows_contig')
+                   and len(self.shape) == 5
                    # chunk keys and chunk_bytes assume one (t,c,z) plane
                    # per chunk file; a leading extent > 1 would key files
                    # by raw plane index and size them for a single plane
@@ -361,8 +375,6 @@ class RawV3ShardWriter(_RawSlabWriterBase):
         self.dtype = np.dtype(dtype)
         es = self.dtype.itemsize
         self.ok = (fill_value == 0 and len(self.shape) == 5
-                   and get_lib() is not None
-                   and hasattr(get_lib(), 'write_rows_contig')
                    # body ordinals and chunk_nbytes assume one (t,c,z)
                    # plane per inner chunk AND per shard (creator layout)
                    # — a leading extent > 1 would mis-size every body

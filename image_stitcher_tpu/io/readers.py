@@ -38,7 +38,8 @@ def load_tile_plane(job: "TileJob") -> np.ndarray:
     elif img.ndim == 3 and img.shape[0] == 1:
         img = img[0]
     if job.fy or job.fx:
-        import cv2
+        from .acquisition import import_cv2
+        cv2 = import_cv2("subpixel placement")
         m = np.array([[1.0, 0.0, job.fx], [0.0, 1.0, job.fy]], np.float64)
         img = cv2.warpAffine(img, m, (img.shape[1], img.shape[0]),
                              flags=cv2.INTER_LINEAR,

@@ -62,7 +62,8 @@ def _encode_jpeg(block: np.ndarray, quality: int) -> bytes:
     which libvips rejects for >8-bit data). RGB tiles are encoded
     4:2:0 YCbCr, libvips' default for this path.
     """
-    import cv2
+    from .acquisition import import_cv2
+    cv2 = import_cv2("JPEG-compressed OME-TIFF output")
     if block.dtype != np.uint8:
         raise ValueError(
             f"jpeg compression supports uint8 only, got {block.dtype} "

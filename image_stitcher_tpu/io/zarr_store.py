@@ -1,10 +1,15 @@
-"""Zarr v2 storage on tensorstore (C++ I/O threads, async chunk writes).
+"""Zarr storage on tensorstore (C++ I/O threads, async chunk writes).
 
 Replaces the reference's zarr-python/dask/ome-zarr write stack
 (stitcher.py:771-859, zarr_stitcher.py:395-440, and the six writer
 variants in stitcher_process.py:958-1549) with one native-backed path:
 tensorstore handles chunking, Blosc compression, and parallel file I/O
 off the Python thread.
+
+tensorstore is optional: it is imported only where an array is opened
+through it. Raw (compressor-null) zarr v2 output goes through
+io/raw_zarr.py and the JSON helpers here, which need only the standard
+library and NumPy.
 """
 
 from __future__ import annotations
@@ -15,7 +20,6 @@ import threading
 from typing import Dict, Optional, Sequence
 
 import numpy as np
-import tensorstore as ts
 
 _DTYPE_TO_ZARR = {
     np.dtype('uint8'): '|u1', np.dtype('int8'): '|i1',
@@ -32,6 +36,26 @@ _DTYPE_TO_ZARR = {
 # Durability parity says off; exporters to flaky media can flip it.
 FILE_IO_SYNC = os.environ.get('STITCHER_FILE_IO_SYNC', '0') not in (
     '0', '', 'false', 'False')
+
+
+def _ts():
+    """The tensorstore module, imported on first use."""
+    try:
+        import tensorstore
+    except ImportError as e:
+        raise ImportError(
+            "this zarr operation needs the tensorstore package (Blosc "
+            "compression, zarr v3, or reading stores back); raw zarr v2 "
+            "output (compressor_cname=None) works without it") from e
+    return tensorstore
+
+
+def have_tensorstore() -> bool:
+    try:
+        _ts()
+    except ImportError:
+        return False
+    return True
 
 
 def _ts_context() -> Dict:
@@ -52,7 +76,7 @@ def create_zarr_array(
     shuffle: int = 1,
     dimension_separator: str = '/',
     fill_value=0,
-) -> ts.TensorStore:
+) -> 'ts.TensorStore':
     """Create (or overwrite) a zarr v2 array; returns an open TensorStore.
 
     Default compressor parity with the reference's production writer
@@ -81,7 +105,26 @@ def create_zarr_array(
         'delete_existing': True,
         'context': _ts_context(),
     }
-    return ts.open(spec).result()
+    return _ts().open(spec).result()
+
+
+def create_raw_zarr_array(path: str, shape: Sequence[int],
+                          chunks: Sequence[int], dtype) -> None:
+    """Create (or overwrite) a raw (compressor: null) zarr v2 array by
+    writing its ``.zarray`` directly — the same metadata tensorstore
+    writes for ``create_zarr_array(..., cname=None)``, without needing
+    tensorstore. Chunk files are then written by io/raw_zarr.py."""
+    import shutil
+    chunks = [min(int(c), int(s)) if s > 0 else int(c)
+              for c, s in zip(chunks, shape)]
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    meta = {'chunks': chunks, 'compressor': None,
+            'dimension_separator': '/', 'dtype': zarr_dtype_str(dtype),
+            'fill_value': 0, 'filters': None, 'order': 'C',
+            'shape': list(map(int, shape)), 'zarr_format': 2}
+    with open(os.path.join(path, '.zarray'), 'w') as f:
+        f.write(json.dumps(meta, sort_keys=True, separators=(',', ':')))
 
 
 def compute_shard_shape(shape: Sequence[int], chunks: Sequence[int],
@@ -113,7 +156,7 @@ def create_zarr3_sharded_array(
     cname: str = 'zstd',
     clevel: int = 1,
     fill_value=0,
-) -> ts.TensorStore:
+) -> 'ts.TensorStore':
     """Create a zarr v3 array with the sharding_indexed codec.
 
     Each shard file holds ``shard_multiple_y`` x ``shard_multiple`` read
@@ -164,14 +207,14 @@ def create_zarr3_sharded_array(
         'delete_existing': True,
         'context': _ts_context(),
     }
-    return ts.open(spec).result()
+    return _ts().open(spec).result()
 
 
-def open_zarr_array(path: str, writable: bool = False) -> ts.TensorStore:
+def open_zarr_array(path: str, writable: bool = False) -> 'ts.TensorStore':
     """Open a zarr array, auto-detecting v2 vs v3 by its metadata file."""
     driver = ('zarr3' if os.path.exists(os.path.join(path, 'zarr.json'))
               else 'zarr')
-    return ts.open({
+    return _ts().open({
         'driver': driver,
         'kvstore': {'driver': 'file', 'path': path},
         'context': _ts_context(),

@@ -589,7 +589,7 @@ class StreamingFuser:
 
 
 class DeviceStreamingFuser:
-    """HBM-resident Y-band fusion: the device twin of StreamingFuser.
+    """Device-resident Y-band fusion: the device twin of StreamingFuser.
 
     The reference's canvas-free architecture (zarr_stitcher.py:421-489)
     with the canvas band living in HBM: tile batches fuse on device
@@ -612,8 +612,7 @@ class DeviceStreamingFuser:
                  chunk_rows: int = 2048, batch_size: int = 8,
                  reader_threads: int = 4,
                  ff_recip: Optional[np.ndarray] = None,
-                 blend_method: str = 'overwrite', blend_px: int = 64,
-                 device_kernel: str = 'auto'):
+                 blend_method: str = 'overwrite', blend_px: int = 64):
         self.writer = writer
         self.num_c, self.num_z = num_c, num_z
         self.height, self.width = height, width
@@ -627,12 +626,9 @@ class DeviceStreamingFuser:
         self.ff_recip = ff_recip
         self.blend = blend_method
         self.blend_px = blend_px
-        from ..ops.pallas_fuse import select_device_kernel
-        self.use_pallas = select_device_kernel(
-            tile_h, tile_w, self.dtype, device_kernel) == 'pallas'
         self._ff_device = None  # lazy one-time H2D of the flatfields
 
-    def _fuse_band(self, band_c: int, band0: int, band_jobs: Sequence,
+    def _fuse_band(self, band0: int, band_jobs: Sequence,
                    progress_cb=None, stop_check=None) -> np.ndarray:
         import jax.numpy as jnp
         from ..io.readers import TileBatchLoader
@@ -641,16 +637,8 @@ class DeviceStreamingFuser:
         rows = min(self.band, self.height - band0)
         # apron: th above (straddlers from the previous band), th below +
         # tw right (dynamic_update_slice stays in-bounds, as in
-        # ops/fuse.padded_canvas_shape); pallas additionally needs the
-        # (sublane, lane) alignment margin for its window DMAs
-        if self.use_pallas:
-            from ..ops.pallas_fuse import (ALIGN_X, align_y_for,
-                                           padded_tile_extents)
-            th_pad, tw_pad = padded_tile_extents(th, tw, self.dtype)
-            shape = (1, 1, th + self.band + th_pad + align_y_for(self.dtype),
-                     self.width + tw_pad + ALIGN_X)
-        else:
-            shape = (1, 1, th + self.band + th, self.width + tw)
+        # ops/fuse.padded_canvas_shape)
+        shape = (1, 1, th + self.band + th, self.width + tw)
         if self.blend == 'feather':
             acc = jnp.zeros(shape, jnp.float32)
             wsum = jnp.zeros(shape, jnp.float32)
@@ -669,14 +657,6 @@ class DeviceStreamingFuser:
         loader = TileBatchLoader(jobs, self.batch_size, th, tw, self.dtype,
                                  num_threads=self.reader_threads)
         consumed = 0
-        # the pallas kernels fuse the flatfield into the placement pass;
-        # the XLA kernels take pre-corrected tiles. The band's dinfo
-        # zeroes the channel (the band canvas is per-(c, z)), so the
-        # fused kernel gets THIS band's single-channel ff slice — the
-        # zeroed index then selects it correctly.
-        fused_ff = self.use_pallas
-        ff_band = (ff[band_c:band_c + 1]
-                   if (fused_ff and ff is not None) else None)
         for batch in loader:
             if stop_check is not None:
                 stop_check()  # per-batch cancellation
@@ -684,31 +664,20 @@ class DeviceStreamingFuser:
             info = jnp.asarray(batch.info)
             dcrops = jnp.asarray(batch.crops)
             dvalid = jnp.asarray(batch.valid)
-            if ff is not None and not fused_ff:
+            if ff is not None:
                 dtiles = fuse_ops.apply_flatfield(dtiles, ff, info[:, 0],
                                                   self.dtype)
             # band-local coordinates: the +th apron keeps origins >= 0
             # for every REAL job; padding entries pin to 0 (their valid
-            # mask is False, but the window DMA address must stay legal)
+            # mask is False, but the slice origin must stay in bounds)
             zero = jnp.zeros_like(info[:, 2])
             yb = jnp.where(dvalid, info[:, 2] - band0 + th, 0)
             xb = jnp.where(dvalid, info[:, 3], 0)
             dinfo = jnp.stack([zero, zero, yb, xb], axis=1)
-            if self.blend == 'feather' and self.use_pallas:
-                from ..ops.pallas_fuse import fuse_feather_pallas
-                acc, wsum = fuse_feather_pallas(acc, wsum, dtiles, dinfo,
-                                                dcrops, dvalid,
-                                                ff_recip=ff_band,
-                                                blend_px=self.blend_px)
-            elif self.blend == 'feather':
+            if self.blend == 'feather':
                 acc, wsum = fuse_ops.fuse_feather(acc, wsum, dtiles, dinfo,
                                                   dcrops, dvalid,
                                                   blend_px=self.blend_px)
-            elif self.use_pallas:
-                from ..ops.pallas_fuse import fuse_overwrite_pallas
-                canvas = fuse_overwrite_pallas(canvas, dtiles, dinfo,
-                                               dcrops, dvalid,
-                                               ff_recip=ff_band)
             else:
                 canvas = fuse_ops.fuse_overwrite(canvas, dtiles, dinfo,
                                                  dcrops, dvalid)
@@ -722,9 +691,8 @@ class DeviceStreamingFuser:
         # D2H only the real rows/cols of this band. The transfer is
         # STARTED here but not waited on: the device array goes to the
         # background writer thread, which materializes it (np.asarray)
-        # while the fusion loop dispatches the next band — on a
-        # DMA-attached host the band readback rides alongside the next
-        # band's compute instead of serializing the fuse loop.
+        # while the fusion loop dispatches the next band, so the band
+        # readback overlaps the next band's compute.
         out = canvas[0, 0, th:th + rows, :self.width]
         try:
             out.copy_to_host_async()
@@ -794,7 +762,7 @@ class DeviceStreamingFuser:
                 if write_err:
                     break
                 c, z, band0 = key
-                buf = self._fuse_band(c, band0, tasks[key], progress,
+                buf = self._fuse_band(band0, tasks[key], progress,
                                       stop_check=stop_check)
                 while not write_err:
                     try:

@@ -2,8 +2,8 @@
  *
  * Flatfield correction multiplies by a HOST-computed reciprocal field
  * (ff holds 1/flatfield): f32 multiplication is bit-exact across this
- * kernel, the NumPy twin, and the TPU op, whereas division is
- * reciprocal-approximated on TPUs.
+ * kernel, the NumPy twin, and the device op, whereas a device divide
+ * may be reciprocal-approximated.
  *
  * The host fusion backend's hot loop (ops/host_fuse.py:_place) does
  * tile/flatfield -> clip -> cast -> canvas[slice] = tile with NumPy,
@@ -290,8 +290,8 @@ void feather_u16(
  *
  * Replaces the NumPy chain acc/np.maximum(wsum,1e-6) -> zero-where-
  * unwritten -> round -> clip -> astype, which materializes ~5 float
- * temporaries per band (measured 50 s of on-core CPU for a g10 canvas,
- * BENCH_NOTES r5 variants table). Semantics are kept bit-identical:
+ * temporaries per band (its cost on the GPU host is not measured).
+ * Semantics are kept bit-identical:
  * rintf = round-half-to-even like np.round; the 1e-6 guard divide and
  * the exact wsum==0 zeroing match the NumPy twin, so the byte-parity
  * tests hold across backends.

@@ -1,4 +1,4 @@
-"""BaSiC-style flatfield estimation, TPU-native.
+"""BaSiC-style flatfield estimation on the accelerator.
 
 The reference delegates to basicpy's ``BaSiC(get_darkfield=False,
 smoothness_flatfield=1).fit(images)`` (stitcher.py:374-375). We implement
@@ -10,18 +10,15 @@ background and shading correction"): each sampled tile D_i is modeled as
 with S the smooth multiplicative flatfield (sparse in DCT domain), B_i a
 per-tile baseline, and E_i a sparse residual (foreground objects). Fit by
 ADMM; the DCT-domain prox is two dense matmuls with the orthonormal
-DCT-II matrix — exactly MXU-shaped work. The whole solver is one jitted
+DCT-II matrix, run at HIGHEST precision (a float32 product may otherwise
+run in TF32 on the GPU). The whole solver is one jitted
 ``lax.fori_loop``; fitting runs at a fixed working resolution (basicpy
 uses 128x128) and the flatfield is resized back to full tile size.
 
 Working resolution: 96 (not basicpy's 128). The shading field is smooth
-by construction (DCT-sparse), so the working size sets CPU cost, not
-accuracy: on ground-truth vignette sweeps (2048^2 tiles, 3 seeds,
-realistic foreground) mean |field/gt - 1| measured 0.00385 at 128,
-0.00329 at 96, 0.00449 at 64 — 96 is the accuracy *winner* while
-halving the solve CPU (0.145 -> 0.070 s/channel at n=32); harsh
-contaminated stacks fail identically at every size (the model, not the
-resolution, is the limit there). See BENCH_NOTES round 4.
+by construction (DCT-sparse), so the working size sets the solve's
+cost, not its accuracy: the ground-truth sweep behind this choice is in
+PERF.md (Findings, flatfield working size).
 """
 
 from __future__ import annotations
@@ -39,11 +36,8 @@ WORKING_SIZE = 96
 # The solve converges once the terminal penalty mu0*rho^iters reaches
 # ~1e2 (the soft thresholds 1/mu and lam/(mu*bsq) have shrunk to
 # noise); (0.02, 1.3, 35) reaches the same terminal mu as the textbook
-# (0.01, 1.1, 100) in a THIRD of the stack passes, with measured
-# ground-truth field error identical (0.02610 vs textbook 0.02714 mean
-# |err| on synthetic vignette+foreground stacks; the r4 intermediate
-# (0.02, 1.2, 50) scored 0.02611 — see BENCH_NOTES round 4). The solve
-# is the flatfield stage's dominant CPU on 1-core hosts.
+# (0.01, 1.1, 100) in a THIRD of the stack passes at the same
+# ground-truth field error (PERF.md, Findings, ADMM schedule).
 MU0 = 0.02
 MU_RHO = 1.3
 DEFAULT_MAX_ITERS = 35
@@ -77,11 +71,15 @@ def fit_flatfield_stack(images: jnp.ndarray, smoothness: float = 1.0,
     C_h = jnp.asarray(dct_matrix(h))
     C_w = jnp.asarray(dct_matrix(w))
 
+    hi = jax.lax.Precision.HIGHEST
+
     def dct2(x):
-        return C_h @ x @ C_w.T
+        return jnp.matmul(jnp.matmul(C_h, x, precision=hi), C_w.T,
+                          precision=hi)
 
     def idct2(x):
-        return C_h.T @ x @ C_w
+        return jnp.matmul(jnp.matmul(C_h.T, x, precision=hi), C_w,
+                          precision=hi)
 
     # DCT is orthonormal, and d is exposure-normalized to O(1) values, so
     # the smoothness weight applies directly as the L1 threshold scale.
@@ -132,10 +130,9 @@ def fit_flatfield_stack_np(images: np.ndarray, smoothness: float = 1.0,
                            max_iters: int = DEFAULT_MAX_ITERS) -> np.ndarray:
     """NumPy twin of :func:`fit_flatfield_stack` (identical iteration).
 
-    The working-resolution solve is ~100 MFLOP — far below the scale
-    where a device pays off, and remote-backend compiles can cost
-    minutes; the host solver runs in well under a second. Kept in exact
-    step-for-step correspondence with the jitted version (tested).
+    The working-resolution solve is ~100 MFLOP; the host solver runs in
+    well under a second. Kept in exact step-for-step correspondence with
+    the jitted version (tested).
     """
     from scipy.fft import dctn, idctn
     n, h, w_ = images.shape
@@ -204,53 +201,70 @@ def load_sample_small(path: str,
     """Read one sample tile decimated straight to working resolution.
 
     The fit happens at ``working_size``^2, so full-resolution decodes are
-    pure waste (VERDICT r1: ~190 full 2048^2 reads for 128^2 fits). The
-    mmap-backed reader + row decimation touch only every ``sy``-th row's
-    pages; the final INTER_AREA resample runs on the small array.
-    Returns (ws, ws) float32, or (ws, ws, 3) for RGB tiles.
+    pure waste. The mmap-backed reader + row decimation touch only every
+    ``sy``-th row's pages; the final area resample runs on the small
+    array. Returns (ws, ws) float32, or (ws, ws, 3) for RGB tiles.
     """
     from ..io.acquisition import read_image
     return decimate_to_working(read_image(path, prefer_mmap=True),
                                working_size)
 
 
+def _area_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) area-resampling matrix: output pixel i averages the
+    input interval [i, i+1) * n_in/n_out, each input pixel weighted by
+    the length it overlaps (OpenCV's INTER_AREA for downscaling)."""
+    scale = n_in / n_out
+    edges = np.arange(n_out + 1, dtype=np.float64) * scale
+    j = np.arange(n_in, dtype=np.float64)[None, :]
+    overlap = (np.minimum(edges[1:, None], j + 1)
+               - np.maximum(edges[:-1, None], j))
+    return np.clip(overlap, 0.0, None) / scale
+
+
+def _linear_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) bilinear-interpolation matrix with pixel centres
+    aligned (src = (dst + 0.5) * n_in/n_out - 0.5, clamped at the
+    borders; OpenCV's INTER_LINEAR)."""
+    src = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    src = np.clip(src, 0.0, n_in - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, n_in - 1)
+    frac = src - lo
+    w = np.zeros((n_out, n_in), np.float64)
+    rows = np.arange(n_out)
+    np.add.at(w, (rows, lo), 1.0 - frac)
+    np.add.at(w, (rows, hi), frac)
+    return w
+
+
+def _resize_separable(img: np.ndarray, out_h: int, out_w: int,
+                      weights) -> np.ndarray:
+    """Apply a separable resampling matrix to (H, W[, C]) float32."""
+    wy = weights(img.shape[0], out_h).astype(np.float32)
+    wx = weights(img.shape[1], out_w).astype(np.float32)
+    out = np.tensordot(wy, img, axes=(1, 0))           # (oh, W[, C])
+    out = np.tensordot(wx, out, axes=(1, 1))           # (ow, oh[, C])
+    return np.ascontiguousarray(np.swapaxes(out, 0, 1))
+
+
 def decimate_to_working(img: np.ndarray, working_size: int) -> np.ndarray:
     """(H, W[, 3]) image -> (ws, ws[, 3]) float32: stride-decimate
     toward ~2x the working size first (free; mmap-backed inputs fault
-    only every sy-th row), then one INTER_AREA resample for the final
-    step. The ONE sampling recipe every fit path uses."""
-    import cv2
+    only every sy-th row), then one area resample for the final step.
+    The ONE sampling recipe every fit path (host and device) uses."""
     h, w = img.shape[:2]
     sy = max(1, h // (2 * working_size))
     sx = max(1, w // (2 * working_size))
     img = np.ascontiguousarray(img[::sy, ::sx]).astype(np.float32)
-    return cv2.resize(img, (working_size, working_size),
-                      interpolation=cv2.INTER_AREA)
-
-
-def pad_stack_cycled(stack: np.ndarray, target: int) -> np.ndarray:
-    """Pad a sample stack to ``target`` by whole cycles plus an
-    evenly-strided remainder, so no sample is over-weighted by more than
-    one extra copy and the extras spread uniformly (the jitted device
-    solver wants ONE static shape)."""
-    n = len(stack)
-    if n >= target:
-        return stack[:target]
-    reps = target // n
-    rem = target - reps * n
-    parts = [stack] * reps
-    if rem:
-        idx = np.linspace(0, n - 1, rem).round().astype(int)
-        parts.append(stack[idx])
-    return np.concatenate(parts)
+    return _resize_separable(img, working_size, working_size, _area_weights)
 
 
 def finalize_flatfield(s: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    """Resize a working-resolution flatfield to full tile size and
-    re-normalize to unit mean (shared tail of every fit path)."""
-    import cv2
-    full = cv2.resize(np.asarray(s, dtype=np.float32),
-                      (out_hw[1], out_hw[0]), interpolation=cv2.INTER_LINEAR)
+    """Resize a working-resolution flatfield to full tile size (bilinear)
+    and re-normalize to unit mean (shared tail of every fit path)."""
+    full = _resize_separable(np.asarray(s, dtype=np.float32),
+                             out_hw[0], out_hw[1], _linear_weights)
     full = np.maximum(full, 1e-3)
     return (full / full.mean()).astype(np.float32)
 
@@ -264,11 +278,10 @@ def fit_flatfield(tiles: np.ndarray, smoothness: float = 1.0,
     Mirrors the reference call (BaSiC fit on a sampled stack, flatfield
     applied at full tile resolution via division, stitcher.py:607-611).
 
-    Down/up-sampling happens on host (OpenCV). The working-resolution
-    solve defaults to the host NumPy solver — it is ~100 MFLOP, below
-    any device's payoff threshold once remote compile latency counts;
-    set ``prefer_device=True`` (or shard the batch, parallel/sharded_ops)
-    to run the jitted solver on accelerators.
+    Down/up-sampling happens on the host (NumPy). The working-resolution
+    solve defaults to the host NumPy solver (~100 MFLOP); set
+    ``prefer_device=True`` (or shard the batch, parallel/sharded_ops) to
+    run the jitted solver on the accelerator.
     """
     tiles = np.asarray(tiles)
     n, h, w = tiles.shape

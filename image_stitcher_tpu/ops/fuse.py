@@ -1,4 +1,4 @@
-"""Tile -> canvas fusion ops (jitted, TPU-resident).
+"""Tile -> canvas fusion ops (jitted, device-resident).
 
 Replaces the reference's per-tile host-side slice assignment
 (stitcher.py:563-605 place_single_channel_tile) with batched on-device
@@ -137,11 +137,12 @@ def apply_flatfield(tiles: jnp.ndarray, ff_recip: jnp.ndarray,
     (ones where absent); channel_idx: (N,) int32.
 
     The correction multiplies by a HOST-computed reciprocal instead of
-    dividing: TPU XLA lowers f32 division to a reciprocal approximation
-    (+-1 LSB on ~0.1% of uint16 pixels vs the host's IEEE divide), while
-    f32 multiplication is exact everywhere — so one reciprocal computed
-    once on the host keeps every backend byte-identical, including real
-    chips.
+    dividing: an f32 product is correctly rounded on every backend,
+    while a device divide may be lowered to a reciprocal approximation
+    that differs from the host's IEEE divide in the last bit — enough to
+    flip a uint16 truncation. One reciprocal computed once on the host
+    keeps the host and device paths byte-identical (checked on the GPU
+    by chip_smoke.py).
     """
     ff = jnp.take(ff_recip, channel_idx, axis=0)  # (N, th, tw)
     corrected = tiles.astype(jnp.float32) * ff

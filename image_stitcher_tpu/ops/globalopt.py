@@ -8,7 +8,7 @@ positions come from the weighted least-squares solution of that graph
 (a graph-Laplacian linear system, solved per axis). Handles per-tile
 stage error that no grid model can express.
 
-The pairwise measurements themselves come from the batched TPU
+The pairwise measurements themselves come from the batched device
 phase-correlation kernel (pipeline.calculate_shifts_all_pairs); this
 solve is a tiny dense system (n_tiles x n_tiles).
 """

@@ -1,12 +1,10 @@
 """Host-side parallel fusion backend (thread pool over NumPy slices).
 
-Why this exists in a TPU framework: the fusion stage is pure data
-movement (tile bytes -> canvas bytes -> disk). On hosts where the
-accelerator link is fast (PCIe/DMA), the device path in ops/fuse.py wins
-outright; on tunneled links (tens of MB/s device<->host) no accelerator
-can beat in-RAM assembly, so the engine falls back to this backend while
-the TPU keeps the compute-dense kernels (registration, flatfield fit).
-Selection is automatic via parallel/autotune.py.
+The fusion stage is pure data movement (tile bytes -> canvas bytes ->
+disk). This backend assembles the canvas in host RAM; it is the fusion
+path on the CPU backend (EngineOptions.fusion_device='auto' picks the
+device canvas on a GPU), and the reference the device paths are tested
+against.
 
 Semantics are identical to ops/fuse.fuse_overwrite (and to the reference
 placement, stitcher.py:563-605): later tile wins, crop masks, edge clamp.
@@ -25,8 +23,8 @@ def correct_tile(tile: np.ndarray, ff_recip: Optional[np.ndarray],
     """Reference flatfield correction (stitcher.py:607-611) expressed as
     multiply-by-reciprocal, clip to dtype range, cast. Every backend —
     this NumPy twin, the C kernel, and the device op — multiplies by the
-    same host-computed reciprocal so outputs stay byte-identical on real
-    TPUs (whose f32 divide is reciprocal-approximated)."""
+    same host-computed reciprocal so outputs stay byte-identical on any
+    device whose f32 divide is reciprocal-approximated."""
     if ff_recip is None:
         return tile
     # undersized edge tiles: correct by the matching top-left window of

@@ -1,17 +1,18 @@
 """Batched FFT phase cross-correlation with upsampled-DFT subpixel refinement.
 
-TPU-native implementation of the published phase-correlation algorithm
+Accelerator implementation of the published phase-correlation algorithm
 (Guizar-Sicairos et al. 2008, "Efficient subpixel image registration
 algorithms") that scikit-image implements and the reference calls as
 ``phase_cross_correlation(a, b, upsample_factor=10)`` with default
 ("phase") normalization (stitcher.py:510,523).
 
 Design notes:
-- The coarse peak comes from jnp.fft FFTs (XLA's native TPU FFT).
+- The coarse peak comes from jnp.fft FFTs (cuFFT on the GPU).
 - The subpixel refinement is two matrix multiplies per axis (the matrix
-  DFT evaluated only on an upsampled patch around the coarse peak) —
-  exactly the shape of work the MXU is built for, and vmap-batched over
-  many tile pairs at once.
+  DFT evaluated only on an upsampled patch around the coarse peak),
+  vmap-batched over many tile pairs at once. They run at HIGHEST
+  precision: a float32 product may otherwise run in TF32 on the GPU,
+  whose ~3 significant digits would move the refined peak.
 - Everything is jit-compatible with static shapes; `upsample_factor` is
   a static argument.
 """
@@ -36,8 +37,11 @@ def _fftfreq(n: int, d: float) -> jnp.ndarray:
     return jnp.concatenate([p1, p2]) * val
 
 
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
 def _upsampled_patch(product: jnp.ndarray, ups_size: int, upsample_factor: int,
-                     offsets: jnp.ndarray) -> jnp.ndarray:
+                     offsets: jnp.ndarray, precision=HIGHEST) -> jnp.ndarray:
     """|upsampled cross-correlation| patch around the coarse peak."""
     # Evaluate conj(product) on the patch, then conjugate back: equivalent
     # to evaluating the inverse DFT at upsampled positions.
@@ -48,17 +52,19 @@ def _upsampled_patch(product: jnp.ndarray, ups_size: int, upsample_factor: int,
     freqs1 = _fftfreq(n1, float(upsample_factor))
     k1 = (jnp.arange(ups_size, dtype=jnp.float32)[:, None] - offsets[1]) * freqs1[None, :]
     kernel1 = jnp.exp((-2j * jnp.pi) * k1.astype(jnp.complex64))
-    data = jnp.tensordot(kernel1, data, axes=((1,), (1,)))  # (ups, H)
+    data = jnp.tensordot(kernel1, data, axes=((1,), (1,)),
+                         precision=precision)  # (ups, H)
     n0 = data.shape[1]
     freqs0 = _fftfreq(n0, float(upsample_factor))
     k0 = (jnp.arange(ups_size, dtype=jnp.float32)[:, None] - offsets[0]) * freqs0[None, :]
     kernel0 = jnp.exp((-2j * jnp.pi) * k0.astype(jnp.complex64))
-    data = jnp.tensordot(kernel0, data, axes=((1,), (1,)))  # (ups_y, ups_x)
+    data = jnp.tensordot(kernel0, data, axes=((1,), (1,)),
+                         precision=precision)  # (ups_y, ups_x)
     return jnp.conj(data)
 
 
 def _pcc_core(reference: jnp.ndarray, moving: jnp.ndarray,
-              upsample_factor: int):
+              upsample_factor: int, precision=HIGHEST):
     """(shifts, peak) from ONE set of FFTs.
 
     The conf variant must not re-trace a second FFT pipeline for the
@@ -95,7 +101,8 @@ def _pcc_core(reference: jnp.ndarray, moving: jnp.ndarray,
     ups_size = int(math.ceil(uf * 1.5))
     dftshift = float(math.trunc(ups_size / 2.0))
     offsets = dftshift - shifts * uf
-    patch = _upsampled_patch(product, ups_size, upsample_factor, offsets)
+    patch = _upsampled_patch(product, ups_size, upsample_factor, offsets,
+                             precision)
     pmag = jnp.abs(patch)
     pidx = jnp.argmax(pmag)
     py = (pidx // ups_size).astype(jnp.float32) - dftshift
@@ -156,9 +163,8 @@ def phase_cross_correlation_np(reference: np.ndarray, moving: np.ndarray,
     """Host (SciPy FFT, float64) twin of :func:`phase_cross_correlation`.
 
     Used for one-shot measurements (the reference's center-pair scope)
-    where a single pair can't amortize a remote device compile; the
-    batched all-pairs path runs the jitted device version. Same
-    algorithm, same results within 0.1 px (tested).
+    and small pair batches; the batched all-pairs path runs the jitted
+    device version. Same algorithm, same results within 0.1 px (tested).
     """
     return _pcc_np(reference, moving, upsample_factor)[0]
 

@@ -20,27 +20,9 @@ import jax.numpy as jnp
 
 @jax.jit
 def downsample_nearest(x: jnp.ndarray) -> jnp.ndarray:
-    """Stride-2 pick over the last two axes; output dims floor(n/2).
-
-    Lane-strided gathers are pathologically slow on TPU (~0.3 GB/s); for
-    the unsigned microscopy dtypes the column pick is instead done by
-    bitcasting each adjacent pair into one wide lane and masking the low
-    half (little-endian: the even element) — contiguous VPU ops, ~12x
-    faster, bit-identical (tested). The row pick is a sublane select,
-    which the VPU handles fine.
-    """
+    """Stride-2 pick over the last two axes; output dims floor(n/2)."""
     h2, w2 = (x.shape[-2] // 2) * 2, (x.shape[-1] // 2) * 2
-    wide = {jnp.uint8.dtype: (jnp.uint16, 0xFF),
-            jnp.uint16.dtype: (jnp.uint32, 0xFFFF)}.get(x.dtype)
-    if wide is None or w2 < 2:  # exotic dtypes: plain strided pick
-        return x[..., :h2:2, :w2:2]
-    wdt, mask = wide
-    t = x[..., :h2, :w2]
-    lead = t.shape[:-2]
-    pairs = t.reshape(lead + (h2, w2 // 2, 2))
-    even_cols = (jax.lax.bitcast_convert_type(pairs, wdt)
-                 & wdt(mask)).astype(x.dtype)
-    return even_cols.reshape(lead + (h2 // 2, 2, w2 // 2))[..., 0, :]
+    return x[..., :h2:2, :w2:2]
 
 
 @jax.jit

@@ -2,11 +2,15 @@
 
 The stitcher's two parallel axes (SURVEY.md §2b):
 - 'data'   — batch parallelism: registration pairs, flatfield stacks,
-  tile-batch preprocessing (the TPU analogue of the reference's
+  tile-batch preprocessing (the device counterpart of the reference's
   Pool.imap_unordered FOV fan-out, zarr_stitcher.py:580-597).
 - 'canvas' — spatial parallelism: the fused canvas is sharded into Y
-  bands across devices (the TPU analogue of the reference's scale story,
-  i.e. never materializing the canvas in one place, SURVEY.md §5).
+  bands across devices (the device counterpart of the reference's scale
+  story, i.e. never materializing the canvas in one place, SURVEY.md §5).
+
+The mesh shape follows the algorithm alone: NVLink joins every card of a
+host to every other at the same rate, so no split is favoured by the
+wiring.
 """
 
 from __future__ import annotations
@@ -41,7 +45,9 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
 
 
 def default_mesh_shape(n: int) -> Tuple[int, int]:
-    """Split devices 2 x n/2 when possible so both axes are exercised."""
+    """Split devices 2 x n/2 when possible so both axes are exercised
+    (the multi-device dry run's choice; the pipeline takes
+    ``EngineOptions.mesh_shape`` as given)."""
     if n % 2 == 0 and n > 1:
         return (2, n // 2)
     return (1, n)

@@ -14,7 +14,7 @@ tile from its crops, so a straddler contributes identical weights to both
 its bands), and the divide+cast finalize is per-band local — bit-equal to
 the single-device feather path (tested).
 
-This is the TPU-mesh replacement for the reference's multiprocessing
+This is the device-mesh replacement for the reference's multiprocessing
 fan-out of disjoint zarr slice writes (zarr_stitcher.py:421-489).
 """
 
@@ -35,8 +35,7 @@ def band_local_origin(y, band: int, tile_h: int, band_start):
     """Band-local y origin + intersection flag (scalar or batched ``y``).
 
     Origins clamp to [0, band + tile_h] — the placement envelope of a
-    band with one-tile aprons (the pallas layout carries an extra
-    alignment margin below it, never a placement target)."""
+    band with one-tile aprons."""
     y_local = jnp.clip(y - band_start + tile_h, 0, band + tile_h)
     intersects = (y + tile_h > band_start) & (y < band_start + band)
     return y_local, intersects
@@ -48,8 +47,7 @@ class ShardedCanvas:
     def __init__(self, mesh: Mesh, num_c: int, num_z: int,
                  height: int, width: int, tile_h: int, tile_w: int, dtype,
                  blend_method: str = 'overwrite', blend_px: int = 64,
-                 device_kernel: str = 'auto', ff_recip=None,
-                 pallas_interpret: bool = False):
+                 ff_recip=None):
         self.mesh = mesh
         self.n_bands = mesh.shape[AXIS_CANVAS]
         self.height, self.width = height, width
@@ -59,32 +57,12 @@ class ShardedCanvas:
         self.dtype = np.dtype(dtype)
         self.blend = blend_method
         self.blend_px = blend_px
-        # pallas per shard: each device runs the Mosaic window kernel on
-        # its own band (shard_map composes with pallas_call) — same
-        # selection rule as the unsharded device path, for overwrite AND
-        # the feathered (acc, wsum) pair.
-        from ..ops.pallas_fuse import select_device_kernel
-        self.use_pallas = select_device_kernel(
-            tile_h, tile_w, self.dtype, device_kernel,
-            interpret=pallas_interpret) == 'pallas'
-        self._pallas_interpret = pallas_interpret
-        # ff_recip ((C, th, tw) f32): fused into the pallas kernel; the
-        # XLA kernels get it applied per batch in fuse_batch — either
-        # way, passing ff_recip is sufficient for corrected output
+        # ff_recip ((C, th, tw) f32): applied per batch in fuse_batch, so
+        # passing it is sufficient for corrected output
         self.ff_recip = ff_recip
         self._ff_device = None
-        if self.use_pallas:
-            from ..ops.pallas_fuse import (ALIGN_X, align_y_for,
-                                           padded_tile_extents)
-            th_pad, tw_pad = padded_tile_extents(tile_h, tile_w, self.dtype)
-            # bottom apron must cover the alignment-PADDED tile extent:
-            # a straddler's last window DMA reaches y + th_pad + align_y
-            self.band_pad += (th_pad - tile_h) + align_y_for(self.dtype)
-            extra_x = (tw_pad - tile_w) + ALIGN_X
-        else:
-            extra_x = 0
         shape = (self.n_bands, num_c, num_z, self.band_pad,
-                 width + tile_w + extra_x)
+                 width + tile_w)
 
         def banded_zeros(dt):
             # jit-init with out_shardings: zeros materialize directly in
@@ -97,13 +75,10 @@ class ShardedCanvas:
         if blend_method == 'feather':
             self.acc = banded_zeros(jnp.float32)
             self.wsum = banded_zeros(jnp.float32)
-            self._fuse = (self._build_fuse_feather_pallas()
-                          if self.use_pallas
-                          else self._build_fuse_feather())
+            self._fuse = self._build_fuse_feather()
         else:
             self.array = banded_zeros(dtype)
-            self._fuse = (self._build_fuse_pallas() if self.use_pallas
-                          else self._build_fuse())
+            self._fuse = self._build_fuse()
 
     def _band_local_pos(self, meta):
         """Band-local y origin + intersection flag for one tile (the
@@ -111,16 +86,6 @@ class ShardedCanvas:
         b = jax.lax.axis_index(AXIS_CANVAS)
         return band_local_origin(meta[2], self.band, self.tile_h,
                                  b * self.band)
-
-    def _shard_batch_info(self, info):
-        """Batched band-local rewrite shared by the pallas builders:
-        (dinfo with band-local y, intersects mask) for THIS shard."""
-        b = jax.lax.axis_index(AXIS_CANVAS)
-        y_local, intersects = band_local_origin(
-            info[:, 2], self.band, self.tile_h, b * self.band)
-        dinfo = jnp.stack([info[:, 0], info[:, 1], y_local,
-                           info[:, 3]], axis=1)
-        return dinfo, intersects
 
     def _build_fuse(self):
         tile_h, tile_w = self.tile_h, self.tile_w
@@ -148,74 +113,6 @@ class ShardedCanvas:
             out_specs=P(AXIS_CANVAS),
             check_vma=False)
         return jax.jit(fuse, donate_argnums=(0,))
-
-    def _build_fuse_pallas(self):
-        """Per-shard Mosaic window kernel: each device runs the SAME
-        pallas placement (with optional fused flatfield) on its own
-        band. Band-local origins ride a rewritten info batch; tiles not
-        intersecting a band keep a legal clamped origin with valid
-        masked off (the window DMA round-trips unchanged bytes)."""
-        mesh = self.mesh
-        interpret = self._pallas_interpret
-        from ..ops.pallas_fuse import fuse_overwrite_pallas
-        with_ff = self.ff_recip is not None
-
-        def local_fuse(canvas, tiles, info, crops, valid, *ff):
-            # canvas: (1, C, Z, band_pad, Wp) local shard
-            dinfo, intersects = self._shard_batch_info(info)
-            out = fuse_overwrite_pallas(
-                canvas[0], tiles, dinfo, crops, valid & intersects,
-                ff_recip=ff[0] if with_ff else None, interpret=interpret)
-            return out[None]
-
-        in_specs = [P(AXIS_CANVAS), P(), P(), P(), P()]
-        if with_ff:
-            in_specs.append(P())
-        fuse = shard_map(
-            local_fuse, mesh=mesh,
-            in_specs=tuple(in_specs),
-            out_specs=P(AXIS_CANVAS),
-            check_vma=False)
-        jitted = jax.jit(fuse, donate_argnums=(0,))
-        if with_ff:
-            ff_arr = jnp.asarray(self.ff_recip, jnp.float32)
-            return lambda cv, t, i, cr, v: jitted(cv, t, i, cr, v, ff_arr)
-        return jitted
-
-    def _build_fuse_feather_pallas(self):
-        """Per-shard Mosaic feather kernel: the banded (acc, wsum) f32
-        pair accumulates through fuse_feather_pallas on each device.
-        Ramps come from the FULL crop window (band aprons keep them
-        whole), so a straddler contributes identical weights to both its
-        bands — exactly the XLA shard path's invariant."""
-        mesh = self.mesh
-        interpret = self._pallas_interpret
-        blend_px = self.blend_px
-        from ..ops.pallas_fuse import fuse_feather_pallas
-        with_ff = self.ff_recip is not None
-
-        def local_fuse(acc, wsum, tiles, info, crops, valid, *ff):
-            dinfo, intersects = self._shard_batch_info(info)
-            a, w = fuse_feather_pallas(
-                acc[0], wsum[0], tiles, dinfo, crops, valid & intersects,
-                ff_recip=ff[0] if with_ff else None,
-                blend_px=blend_px, interpret=interpret)
-            return a[None], w[None]
-
-        in_specs = [P(AXIS_CANVAS), P(AXIS_CANVAS), P(), P(), P(), P()]
-        if with_ff:
-            in_specs.append(P())
-        fuse = shard_map(
-            local_fuse, mesh=mesh,
-            in_specs=tuple(in_specs),
-            out_specs=(P(AXIS_CANVAS), P(AXIS_CANVAS)),
-            check_vma=False)
-        jitted = jax.jit(fuse, donate_argnums=(0, 1))
-        if with_ff:
-            ff_arr = jnp.asarray(self.ff_recip, jnp.float32)
-            return lambda a, w, t, i, cr, v: jitted(a, w, t, i, cr, v,
-                                                    ff_arr)
-        return jitted
 
     def _build_fuse_feather(self):
         tile_h, tile_w = self.tile_h, self.tile_w
@@ -258,9 +155,8 @@ class ShardedCanvas:
         """Fuse a replicated batch; tiles (N, th, tw), info (N,4) [c,z,y,x].
 
         When ``ff_recip`` was given, tiles arrive RAW and are corrected
-        here: in-kernel on the pallas path, as a batched apply_flatfield
-        on the XLA paths — one contract either way."""
-        if self.ff_recip is not None and not self.use_pallas:
+        here with a batched apply_flatfield."""
+        if self.ff_recip is not None:
             from ..ops.fuse import apply_flatfield
             if self._ff_device is None:
                 self._ff_device = jnp.asarray(self.ff_recip, jnp.float32)

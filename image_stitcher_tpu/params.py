@@ -5,7 +5,7 @@ Public schema kept compatible with the reference CLI/JSON surface
 defaults, same ``validate()`` rules, same timestamped ``stitched_folder``
 derivation, same ``from_dict``/``from_json``/``to_dict``/``to_json``.
 
-TPU-specific knobs live in :class:`EngineOptions` so the user-facing
+Engine knobs live in :class:`EngineOptions` so the user-facing
 parameter schema stays drop-in compatible.
 """
 
@@ -105,7 +105,7 @@ class StitchingParameters:
 
 @dataclass
 class EngineOptions:
-    """TPU-engine knobs that the reference hard-coded.
+    """Engine knobs that the reference hard-coded.
 
     Every value here was an undocumented constant in the reference; we
     surface them with reference-matching defaults so default runs stay
@@ -133,22 +133,24 @@ class EngineOptions:
     # 'auto' probes sample tiles at write time and compresses only when
     # BOTH gates pass: median probe ratio <= 0.6 (content genuinely
     # compresses) and measured output-device bandwidth < 300 MB/s x
-    # cores (the disk, not the CPU, is the bottleneck). Measured: on a
-    # 1-core/1 GB/s-disk host, lz4 ran 5x slower e2e than raw chunks
-    # while saving 20% of bytes (BENCH_NOTES round-4 compressor A/B).
-    compressor_cname: str = 'lz4'
+    # cores (the disk, not the CPU, is the bottleneck: on a fast disk
+    # lz4 costs more core time than the bytes it saves; not measured on
+    # the GPU host). Blosc chunks are written through tensorstore
+    # ('auto' stores raw where it is not installed); None stores raw
+    # chunks through io/raw_zarr.py.
+    compressor_cname: Optional[str] = 'lz4'
     compressor_clevel: int = 5
     compressor_shuffle: int = 1
     # O_DIRECT for the raw (compressor-null) chunk/shard writers:
     # 'auto' uses a measured buffered-vs-direct probe per device (disk-
     # cached 24 h, io/directio.py) — on hosts whose writing core also
     # pays page-cache copy + writeback, direct sustains the device's
-    # real rate (measured 550 vs 180 MB/s steady-state here) and leaves
-    # the input tiles cached. Output bytes are identical either way.
+    # real rate and leaves the input tiles cached (not measured on the
+    # GPU host). Output bytes are identical either way.
     direct_io: str = 'auto'
     # Zarr storage format: 2 = zarr v2 + OME-NGFF 0.4 (the reference-
     # compatible tree); 3 = zarr v3 sharded + OME-NGFF 0.5 (~10x fewer
-    # files at scale; see tools/SAVE_BENCH_RESULTS.md).
+    # files at scale; needs tensorstore).
     zarr_format: int = 2
     # Fusion semantics: 'overwrite' = reference parity (stitcher.py:598,
     # direct slice assignment, later tile wins); 'feather' = weighted
@@ -169,11 +171,10 @@ class EngineOptions:
     subpixel_placement: bool = False
     # Where the flatfield ADMM solve runs: 'host' (NumPy twin — the
     # working-resolution solve is ~100 MFLOP) or 'device' (jitted
-    # lax.fori_loop on one fixed padded shape; right once the compile is
-    # cached or the chip is DMA-attached).
+    # lax.fori_loop on the same sample stack). Which wins on the GPU is
+    # not measured yet; both are exercised end to end by chip_smoke.py.
     flatfield_device: str = 'host'
-    # Pair batches at or below this size measure on the host f64 twin
-    # (a one-shot remote compile can cost more than the measurement);
+    # Pair batches at or below this size measure on the host f64 twin;
     # larger batches run the jitted device kernel. 0 = always device.
     registration_device_threshold: int = 32
     # All-pairs/global registration streams pair strips through bounded
@@ -182,15 +183,10 @@ class EngineOptions:
     # ~GBs of strips at once. Batches above the device threshold reuse
     # one compiled kernel shape (short final batches are padded).
     registration_batch_pairs: int = 128
-    # Where fusion runs: 'device' (TPU canvas, right for DMA-attached
-    # chips), 'host' (threaded NumPy, right for slow tunneled links), or
-    # 'auto' (pick by a measured link-bandwidth probe).
+    # Where fusion runs: 'device' (accelerator canvas), 'host' (threaded
+    # NumPy + native C), or 'auto': 'device' when jax's default backend
+    # is a GPU, 'host' on the CPU backend.
     fusion_device: str = 'auto'
-    # Device fusion kernel: 'auto' (pallas on real TPUs — the explicit
-    # DMA window kernel measures ~7.6x the scan at 2048^2 tiles — XLA
-    # elsewhere), 'xla' (lax.scan of dynamic-update-slices), or 'pallas'
-    # (explicit DMA/VPU kernel, ops/pallas_fuse.py).
-    device_fusion_kernel: str = 'auto'
     host_fusion_threads: Optional[int] = None  # None = auto from affinity
     # Feather ramp width in px (blend_method='feather').
     feather_px: int = 64
@@ -319,9 +315,14 @@ class EngineOptions:
             if self.output_folder is None:
                 raise ValueError("work_shard requires an explicit "
                                  "output_folder shared by all shards")
-        if self.device_fusion_kernel not in ('auto', 'xla', 'pallas'):
-            raise ValueError(
-                "device_fusion_kernel must be 'auto', 'xla' or 'pallas'")
+        if self.compressor_cname not in (None, 'auto') or self.zarr_format == 3:
+            from .io.zarr_store import have_tensorstore
+            if not have_tensorstore():
+                raise ValueError(
+                    "compressed (Blosc) or zarr v3 output needs the "
+                    "tensorstore package, which is not installed; use "
+                    "compressor_cname=None and zarr_format=2 for raw "
+                    "zarr v2 chunks")
         if self.streaming not in ('auto', 'on', 'off'):
             raise ValueError("streaming must be 'auto', 'on' or 'off'")
         if self.subpixel_placement and self.registration_scope != 'global':

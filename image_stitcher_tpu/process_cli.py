@@ -85,8 +85,6 @@ def monitor_process(stitcher, progress_queue, status_queue, complete_queue,
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    from .utils.jaxenv import pin_jax_platform
-    pin_jax_platform()
     try:
         params = create_params(args)
         params.validate()

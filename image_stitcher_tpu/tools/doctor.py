@@ -1,66 +1,56 @@
 #!/usr/bin/env python3
 """Environment diagnosis: the first-hardware-contact checklist, automated.
 
-``stitcher-doctor`` reports, without ever hanging on a stalled remote
-runtime (every jax touch goes through the killable probe subprocess):
+``stitcher-doctor`` reports:
 
-- which jax backend a run would use, and whether it initializes at all
-- measured host<->device link bandwidth and the fusion placement the
-  engine would choose from it
-- the host's measured in-RAM placement rate
+- the jax backend a run uses: platform, device kind and count, and for
+  NVIDIA cards their name and power limit as ``nvidia-smi`` gives them
+- the fusion backend ``fusion_device='auto'`` picks on that platform
 - native C kernel availability (and which symbols are bound)
 - disk write throughput where outputs would land
-- persistent compile-cache and probe-cache state
+- persistent compile-cache state
 
 Reference context: the reference has no diagnostics at all (prints
 only); deployment triage there means reading tracebacks. This replaces
-docs/DEPLOYMENT.md's manual checklist items 1-4 with one command.
+docs/DEPLOYMENT.md's manual checklist items with one command.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
-from typing import List, Tuple
+from typing import List
 
 
-def _check_backend(deadline: float) -> Tuple[str, List[str]]:
-    from ..parallel.autotune import _expected_backend, _run_probe
-    lines = []
-    expected = _expected_backend()
-    lines.append(f"expected backend: {expected or 'unknown until init'}")
-    t0 = time.perf_counter()
-    probed = _run_probe(16, deadline)
-    dt = time.perf_counter() - t0
-    if probed is None:
-        lines.append(f"device probe: STALLED/FAILED after {dt:.0f}s — the "
-                     "runtime did not answer (dead tunnel or missing "
-                     "plugin). The engine will run all-host.")
-        return 'dead', lines
-    backend, rates = probed
-    lines.append(f"device probe: backend={backend} "
-                 f"h2d={rates['h2d_mbps']:.0f} MiB/s "
-                 f"d2h={rates['d2h_mbps']:.1f} MiB/s ({dt:.1f}s)")
-    return backend, lines
+def gpu_name_and_power_limit() -> List[str]:
+    """``nvidia-smi --query-gpu=name,power.limit`` lines, one per card;
+    empty when there is no NVIDIA driver on this host."""
+    try:
+        out = subprocess.run(
+            ['nvidia-smi', '--query-gpu=name,power.limit',
+             '--format=csv,noheader'],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return []
+    if out.returncode != 0:
+        return []
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
 
 
-def _check_placement(link_dead: bool) -> List[str]:
-    from ..parallel.autotune import (choose_fusion_backend, DEAD_LINK,
-                                     probe_host_bandwidth,
-                                     probe_link_bandwidth)
-    lines = []
-    host_bps = probe_host_bandwidth()
-    lines.append(f"host placement rate: {host_bps / 1e9:.2f} GB/s")
-    link = DEAD_LINK if link_dead else probe_link_bandwidth()
-    # a representative job: 10x10x3ch 2048^2 uint16
-    tiles = 300 * 2048 * 2048 * 2
-    canvas = 3 * 18635 * 18635 * 2
-    choice = choose_fusion_backend(canvas, tiles, link, host_bps=host_bps)
-    lines.append(f"fusion placement for a 10x10x3ch 2048^2 job: {choice}")
+def _check_device() -> List[str]:
+    import jax
+    devs = jax.devices()
+    lines = [f"backend: platform={devs[0].platform} "
+             f"kind={devs[0].device_kind} count={len(devs)}"]
+    for card in gpu_name_and_power_limit():
+        lines.append(f"card: {card}")
+    from ..models.pipeline import auto_fusion_backend
+    lines.append(f"fusion_device='auto' runs fusion on: "
+                 f"{auto_fusion_backend()}")
     return lines
 
 
@@ -69,7 +59,7 @@ def _check_native() -> List[str]:
     lib = get_lib()
     if lib is None:
         return ["native kernels: UNAVAILABLE (no C compiler?) — host "
-                "fusion falls back to NumPy, raw writes to tensorstore"]
+                "fusion and raw zarr writes fall back to NumPy"]
     syms = [s for s in ('place_u16', 'feather_u16', 'write_rows_contig',
                         'downsample2x_u16', 'downsample2x2_mean_u16')
             if hasattr(lib, s)]
@@ -93,47 +83,28 @@ def _check_disk(path: str, size_mb: int = 256) -> List[str]:
 
 
 def _check_caches() -> List[str]:
-    from ..parallel.autotune import _probe_cache_path
-    lines = []
-    p = _probe_cache_path()
-    try:
-        with open(p) as f:
-            saved = json.load(f)
-        links = ', '.join(
-            f"{k}: h2d={v['h2d_mbps']:.0f}/d2h={v['d2h_mbps']:.1f} MiB/s"
-            for k, v in saved.get('links', {}).items())
-        lines.append(f"probe cache: {links or 'empty'} ({p})")
-    except Exception:
-        lines.append(f"probe cache: none ({p})")
-    cc = os.environ.get('JAX_COMPILATION_CACHE_DIR') or os.path.expanduser(
-        '~/.cache/jax')
+    from .. import compile_cache_dir
+    cc = compile_cache_dir()
     n = 0
     for _root, _dirs, files in os.walk(cc):
         n += len(files)
-    lines.append(f"jax compile cache: {n} file(s) under {cc}")
-    return lines
+    return [f"jax compile cache: {n} file(s) under {cc}"]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="Diagnose the stitching environment (storm-safe)")
+        description="Diagnose the stitching environment")
     ap.add_argument("--output-dir", default=tempfile.gettempdir(),
                     help="directory whose disk to probe (default: tmp)")
-    ap.add_argument("--deadline", type=float, default=60.0,
-                    help="device probe kill deadline, seconds")
     ap.add_argument("--skip-device", action="store_true",
-                    help="skip the device probe entirely")
+                    help="do not initialize a jax backend")
     args = ap.parse_args(argv)
 
     sections = []
     if args.skip_device:
-        backend = 'skipped'
-        sections.append(("Device", ["device probe: skipped"]))
+        sections.append(("Device", ["device: skipped"]))
     else:
-        backend, lines = _check_backend(args.deadline)
-        sections.append(("Device", lines))
-    sections.append(("Placement",
-                     _check_placement(link_dead=backend == 'dead')))
+        sections.append(("Device", _check_device()))
     sections.append(("Native", _check_native()))
     try:
         sections.append(("Disk", _check_disk(args.output_dir)))

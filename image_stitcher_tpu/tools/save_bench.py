@@ -182,8 +182,7 @@ def main(argv=None) -> int:
     p.add_argument("--channels", type=int, default=3)
     p.add_argument("--chunks", type=int, nargs="+", default=[1024, 2048, 4096])
     # the raw direct-vs-tensorstore rows are opt-in: the default sweep
-    # keeps the original four writers (SAVE_BENCH_RESULTS.md documents
-    # the raw rows separately)
+    # keeps the original four writers
     p.add_argument("--writers", nargs="+",
                    default=["ome_zarr_tensorstore", "zarr3_sharded",
                             "ome_tiff_pyramidal", "zlib_chunks"],

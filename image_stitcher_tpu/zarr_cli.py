@@ -3,7 +3,7 @@
 
 Parity with reference zarr_stitcher_cli.py:1-132: the reduced flag set
 (-i, -r, -rc, -rz, -s) plus --num-workers, a child stitching process,
-and queue monitoring. In the TPU engine "workers" tune host-side
+and queue monitoring. In this engine "workers" tune host-side
 parallelism (reader/fusion threads) — the replacement for the
 reference's Pool of re-opened zarr stores (zarr_stitcher.py:580-597).
 """
@@ -44,8 +44,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    from .utils.jaxenv import pin_jax_platform
-    pin_jax_platform()
     params = StitchingParameters(
         input_folder=args.input_folder,
         use_registration=args.use_registration,

@@ -188,3 +188,25 @@ def test_find_tile_float_perturbed_coords(tmp_path):
     # but a genuinely different position (>= one tile pitch away) misses
     assert acq.find_tile(0, "A1", xs[1] + 0.01, ys[0],
                          acq.channel_names[0], 0) is None
+
+
+# ------------------------------------------------ coordinates.csv (stdlib)
+
+@pytest.mark.parametrize("row,expect", [
+    ("A1,,0,1.0,2.0,0.0", None),            # blank fov
+    ("A1,1.5,0,1.0,2.0,0.0", None),         # fractional fov
+    ("A1,1,nan,1.0,2.0,0.0", None),         # NaN z_level
+    (",1,0,1.0,2.0,0.0", None),             # blank region
+    ("5.0,1,0,1.0,2.0,0.0", ("5", 1, 0)),   # float-typed numeric region
+    ("A1,0,0,9.0,9.0,0.0", ("A1", 0, 0)),   # duplicate: first row wins
+], ids=["blank-fov", "fractional-fov", "nan-z", "blank-region",
+        "numeric-region", "first-wins"])
+def test_read_coordinates_skip_rules(tmp_path, row, expect):
+    from image_stitcher_tpu.io.acquisition import read_coordinates
+    path = tmp_path / "coordinates.csv"
+    path.write_text("region,fov,z_level,x (mm),y (mm),z (um)\n"
+                    "A1,0,0,0.5,0.25,0.0\n" + row + "\n")
+    rows = read_coordinates(str(path))
+    assert rows[("A1", 0, 0)]["x (mm)"] == "0.5"
+    assert set(rows) - {("A1", 0, 0)} == (
+        set() if expect is None or expect == ("A1", 0, 0) else {expect})

@@ -1,9 +1,9 @@
 """Randomized cross-backend equivalence: every fusion path, same bytes.
 
 For random acquisition configurations, the host (NumPy + native C),
-streaming (banded), device-XLA, device-pallas(interpret-level op tests
-cover that), and mesh-sharded backends must produce identical level-0
-output. This is the strongest net against backend drift.
+streaming (banded), device-XLA and mesh-sharded backends must produce
+identical level-0 output. This is the strongest net against backend
+drift.
 """
 
 import glob

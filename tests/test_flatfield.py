@@ -87,10 +87,9 @@ def test_flatfield_robust_to_sparse_foreground():
 def test_default_working_size_ground_truth_accuracy():
     """Pin the default working resolution's ground-truth accuracy.
 
-    WORKING_SIZE dropped 128 -> 96 in round 4 after a sweep showed the
-    smooth (DCT-sparse) field's accuracy is set by the model, not the
-    grid: mean |field/gt - 1| measured 0.00385 @128 / 0.00329 @96 /
-    0.00449 @64 on 2048^2 fixtures (BENCH_NOTES round 4). This bounds
+    WORKING_SIZE is 96 because a ground-truth sweep showed the smooth
+    (DCT-sparse) field's accuracy is set by the model, not the grid
+    (PERF.md, Findings, flatfield working size). This bounds
     the same metric at the DEFAULT size on a scaled-down fixture so a
     future size change must re-prove accuracy, not just speed."""
     from image_stitcher_tpu.ops.flatfield import (
@@ -210,3 +209,52 @@ def test_buffered_np_solver_matches_naive_textbook_form():
     got = fit_flatfield_stack_np(stack, max_iters=35)
     want = naive(stack, max_iters=35)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------- NumPy resampling (no OpenCV)
+
+@pytest.mark.parametrize("n_in,n_out", [(205, 96), (96, 96), (48, 96)])
+def test_area_weights_preserve_mean(n_in, n_out):
+    from image_stitcher_tpu.ops.flatfield import _area_weights
+    w = _area_weights(n_in, n_out)
+    assert w.shape == (n_out, n_in)
+    np.testing.assert_allclose(w.sum(axis=1), 1.0, atol=1e-12)
+    # every input pixel carries the same total weight
+    np.testing.assert_allclose(w.sum(axis=0), n_out / n_in, atol=1e-12)
+
+
+@pytest.mark.parametrize("n_in,n_out", [(96, 2048), (96, 1000)])
+def test_linear_weights_interpolate(n_in, n_out):
+    from image_stitcher_tpu.ops.flatfield import _linear_weights
+    w = _linear_weights(n_in, n_out)
+    np.testing.assert_allclose(w.sum(axis=1), 1.0, atol=1e-12)
+    ramp = np.arange(n_in, dtype=np.float64)
+    out = w @ ramp
+    # pixel-centre alignment: interior outputs sit on the input ramp
+    src = (np.arange(n_out) + 0.5) * n_in / n_out - 0.5
+    inner = (src >= 0) & (src <= n_in - 1)
+    np.testing.assert_allclose(out[inner], src[inner], atol=1e-9)
+
+
+@pytest.mark.parametrize("shape", [(2048, 2048), (100, 60), (300, 200, 3)])
+def test_decimate_to_working_shape_and_mean(shape):
+    from image_stitcher_tpu.ops.flatfield import decimate_to_working
+    rng = np.random.default_rng(0)
+    flat = np.full(shape, 1234, np.uint16)
+    out = decimate_to_working(flat, 96)
+    assert out.shape == (96, 96) + shape[2:] and out.dtype == np.float32
+    np.testing.assert_allclose(out, 1234.0, rtol=1e-6)
+    img = rng.random(shape).astype(np.float32)
+    small = decimate_to_working(img, 96)
+    assert abs(small.mean() - img.mean()) < 0.01
+
+
+def test_finalize_flatfield_shape_and_unit_mean():
+    from image_stitcher_tpu.ops.flatfield import finalize_flatfield
+    s = make_vignette(96, 96)
+    full = finalize_flatfield(s, (2048, 1500))
+    assert full.shape == (2048, 1500) and full.dtype == np.float32
+    assert full.mean() == pytest.approx(1.0, abs=1e-5)
+    # the smooth field keeps its shape through the bilinear upsample
+    assert np.corrcoef(full[::16, ::16].ravel(),
+                       make_vignette(2048, 1500)[::16, ::16].ravel())[0, 1] > 0.99

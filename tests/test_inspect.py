@@ -45,16 +45,26 @@ def test_save_debug_slice(tmp_path):
     assert img[8, 8, 2] == 255 and img[24, 8, 2] == 0
 
 
-def test_stitch_with_pallas_kernel_cpu_interpreted(tmp_path):
-    """Pipeline with the pallas device kernel, on CPU via interpret=False
-    works in interpret-capable CPU backend? -> use fusion_device='device'
-    and pallas only under interpret: exercised via direct op tests; here
-    just validate option plumbing."""
+def test_stitch_device_fusion_matches_numpy_reference(tmp_path):
+    """A coordinate stitch through the device fusion path (the XLA scan)
+    equals the tiles slice-assigned by NumPy at their stage positions —
+    here the ground-truth window they were cut from."""
     from image_stitcher_tpu.params import EngineOptions
-    EngineOptions(device_fusion_kernel='pallas').validate()
-    import pytest
-    with pytest.raises(ValueError):
-        EngineOptions(device_fusion_kernel='mosaic').validate()
+    from image_stitcher_tpu.io.zarr_store import open_zarr_array
+    acq_dir = str(tmp_path / "acq")
+    syn = write_synthetic_acquisition(acq_dir, grid_cols=3, grid_rows=2,
+                                      tile_w=48, tile_h=40, overlap=12)
+    stitch(acq_dir, options=EngineOptions(fusion_device='device',
+                                          fusion_batch=4))
+    out = sorted(glob.glob(acq_dir + "_stitched_*"))[-1]
+    zp = os.path.join(out, "0_stitched", "A1_stitched.ome.zarr", "0")
+    got = np.asarray(open_zarr_array(zp).read().result())[0, 0, 0]
+    expect = np.zeros_like(got)
+    for (_, _, r, c), (y0, x0) in sorted(syn.tile_origins.items()):
+        y, x = r * (40 - 12), c * (48 - 12)
+        expect[y:y + 40, x:x + 48] = syn.ground_truth[y0:y0 + 40,
+                                                      x0:x0 + 48]
+    np.testing.assert_array_equal(got, expect)
 
 
 def test_zarr_tree_v3(tmp_path, capsys):

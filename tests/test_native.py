@@ -135,7 +135,7 @@ def test_downsample2x2_mean_native_matches_numpy(lib, rng, dtype, shape):
 def test_finalize_feather_native_matches_numpy():
     """Native single-pass finalize is bit-identical to the NumPy chain
     for both dtypes, all supported leading shapes, and the wsum==0 /
-    clip edges (the 50x hot path of feather blending, BENCH_NOTES r5)."""
+    clip edges (the hot path of host feather blending)."""
     import numpy as np
     from image_stitcher_tpu.ops.host_fuse import finalize_feather_host
     import image_stitcher_tpu.native as nat

@@ -459,11 +459,11 @@ def test_leading_chunk_extent_gt1_rejected(tmp_path):
 
 
 def test_v2_mixing_gate_disables_raw_after_fallback(tmp_path):
-    """A tensorstore fallback write can land to the RIGHT of later raw
-    slabs in the same rows; the raw v2 writer zero-pads each touched
-    chunk row's x-tail, which would erase it. One fallback therefore
-    disables raw for the level (disable_on_fallback now also True for
-    v2), and the store must read back exactly what was written."""
+    """Raw zarr v2 levels are written by the raw writer alone (no
+    tensorstore array to fall back to, so no mixed-writer hazard): a
+    slab outside its contract raises before writing anything, the raw
+    writer stays enabled, and the store reads back exactly what the
+    supported writes put there."""
     import tensorstore as ts
 
     from image_stitcher_tpu.io.omezarr import MultiscaleWriter
@@ -473,17 +473,20 @@ def test_v2_mixing_gate_disables_raw_after_fallback(tmp_path):
                          name='mix', dz_um=1.0, pixel_size_um=1.0,
                          channel_names=['c0'], channel_colors=[0xFFFFFF],
                          cname=None)
-    assert w._raw is not None and w._raw[0].ok
+    assert w._raw is not None and w._raw[0].ok and w.arrays is None
     full = np.arange(64 * 128, dtype=np.uint16).reshape(1, 1, 1, 64, 128)
-    # fallback pattern: x does not start at 0 -> tensorstore path
+    # unsupported pattern: x does not start at 0
     sel_right = (slice(0, 1), slice(0, 1), slice(0, 1),
                  slice(0, 64), slice(64, 128))
-    w.write_level(0, full[..., 64:], sel_right, block=True)
-    assert not w._raw[0].ok  # gate tripped
-    # raw-shaped write to the same rows' left half now rides tensorstore
-    sel_left = (slice(0, 1), slice(0, 1), slice(0, 1),
-                slice(0, 64), slice(0, 64))
-    w.write_level(0, full[..., :64], sel_left, block=True)
+    with pytest.raises(ValueError, match="raw zarr v2 writer"):
+        w.write_level(0, full[..., 64:], sel_right, block=True)
+    assert w._raw[0].ok
+    assert _all_chunk_files(store + '/0') == {}
+    # full-width slabs land raw
+    for y0 in (0, 32):
+        sel = (slice(0, 1), slice(0, 1), slice(0, 1),
+               slice(y0, y0 + 32), slice(0, 128))
+        assert w.write_level(0, full[..., y0:y0 + 32, :], sel, block=True)
     w.close()
     a = ts.open({"driver": "zarr",
                  "kvstore": {"driver": "file", "path": store + '/0'}}

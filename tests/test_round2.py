@@ -10,7 +10,6 @@ import pytest
 from fixtures import write_synthetic_acquisition
 from image_stitcher_tpu import EngineOptions, stitch
 from image_stitcher_tpu.io.zarr_store import open_zarr_array
-from image_stitcher_tpu.ops.flatfield import pad_stack_cycled
 
 
 def _shrink_fov(acq_dir: str, fov: int) -> str:
@@ -62,17 +61,6 @@ def test_mmap_read_matches_copy_read(tmp_path):
         b = read_tiff_fast(path, use_mmap=True)
         assert a is not None and b is not None
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_pad_stack_cycled_even_weighting():
-    stack = np.arange(5)[:, None, None] * np.ones((1, 2, 2))
-    padded = pad_stack_cycled(stack, 13)
-    assert len(padded) == 13
-    counts = np.bincount(padded[:, 0, 0].astype(int), minlength=5)
-    # 13 = 2 whole cycles + 3 strided extras: every count in {2, 3}
-    assert counts.min() >= 2 and counts.max() <= 3
-    # trim case
-    assert len(pad_stack_cycled(stack, 3)) == 3
 
 
 def test_undersized_tile_backends_agree(tmp_path):
@@ -363,8 +351,8 @@ def test_zarr_v3_streaming_and_merges(tmp_path):
 
 
 def test_flatfield_device_matches_host(tmp_path):
-    """flatfield_device='device' (jitted solver on the padded stack)
-    produces a field close to the host fit on the unique stack."""
+    """flatfield_device='device' (jitted solver) fits the same sample
+    stack as the host twin, so the fields agree to solver precision."""
     acq_dir = str(tmp_path / "acq")
     write_synthetic_acquisition(acq_dir, grid_cols=3, grid_rows=3,
                                 tile_w=64, tile_h=64, overlap=16,
@@ -379,10 +367,9 @@ def test_flatfield_device_matches_host(tmp_path):
         pipe.acq = scan_acquisition(acq_dir)
         pipe.compute_flatfields()
         fields[mode] = pipe.flatfields[0]
-    # same model solved on (padded vs unique) stacks: fields agree to a
-    # few percent and correlate strongly with each other
+    # same model on the same stack: only f32 reduction order differs
     a, b = fields["host"], fields["device"]
-    assert np.abs(a - b).mean() < 0.02
+    np.testing.assert_allclose(a, b, atol=1e-3)
     assert np.corrcoef(a.ravel(), b.ravel())[0, 1] > 0.98
 
 

@@ -247,46 +247,3 @@ def test_parallel_merge_units_match_sequential(tmp_path, monkeypatch):
         results[label] = wells
     for region in results["seq"]:
         assert (results["seq"][region] == results["par"][region]).all()
-
-
-def test_bench_link_gate_demotes_stale_winners():
-    """bench.apply_link_gate demotes a device-stage probe win whose
-    link-bound floor at FRESH rates exceeds the host twin, and keeps
-    wins that still clear it. Pure function of (choice, timings, lp)."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "bench_mod", os.path.join(os.path.dirname(__file__), "..",
-                                  "bench.py"))
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
-
-    timings = {'flatfield host(ADMM)': 4.0,
-               'registration host(center,f64)': 2.0}
-
-    # healthy link: both wins survive (floors are fractions of a second)
-    choice = {'device_registration': True, 'device_flatfield': True}
-    bench.apply_link_gate(choice, timings,
-                          {'h2d_mbps': 900.0, 'd2h_mbps': 900.0})
-    assert choice == {'device_registration': True, 'device_flatfield': True}
-
-    # d2h collapsed: flatfield readback floor blows past its host twin,
-    # registration (h2d-bound) survives
-    choice = {'device_registration': True, 'device_flatfield': True}
-    bench.apply_link_gate(choice, timings,
-                          {'h2d_mbps': 900.0, 'd2h_mbps': 2.0})
-    assert choice == {'device_registration': True,
-                      'device_flatfield': False}
-
-    # h2d collapsed too: registration strip shipment loses as well
-    choice = {'device_registration': True, 'device_flatfield': True}
-    bench.apply_link_gate(choice, timings,
-                          {'h2d_mbps': 0.5, 'd2h_mbps': 0.5})
-    assert choice == {'device_registration': False,
-                      'device_flatfield': False}
-
-    # all-host choice is untouched (gate is a no-op)
-    choice = {'device_registration': False, 'device_flatfield': False}
-    bench.apply_link_gate(choice, timings,
-                          {'h2d_mbps': 0.5, 'd2h_mbps': 0.5})
-    assert choice == {'device_registration': False,
-                      'device_flatfield': False}

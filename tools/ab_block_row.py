@@ -3,8 +3,8 @@
 The chunk-column block banding removes the O_DIRECT staging pack
 (~canvas-sized memcpy) from the write stage; its effect (~0.3-0.5 s at
 g10) is far below the host's weather swing, so only an interleaved
-best-of comparison in ONE window is meaningful (see BENCH_NOTES
-methodology). Run:  python tools/ab_block_row.py [reps]
+best-of comparison in ONE window is meaningful. Run:
+python tools/ab_block_row.py [reps]
 """
 import glob
 import os

@@ -1,7 +1,7 @@
 """Weather-gated official-style bench capture.
 
-The 1-core host's allocation swings 3-8x within minutes (see
-BENCH_NOTES methodology): a capture in a starved window wastes its
+A shared host's CPU allocation can swing several-fold within minutes:
+a capture in a starved window wastes its
 whole time budget recording weather. This tool measures the core share
 a busy thread actually gets (thread_time/wall over a short spin); only
 when the host is near full-core does it launch `python bench.py` and
